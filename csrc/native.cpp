@@ -1,8 +1,8 @@
-// Native host runtime for the TPU voxel renderer.
+// Native host runtime for the voxel renderer.
 //
 // Plays the role of the reference's C++ host layer (prlib image IO,
-// hipUtil buffers, pmjSampler host generation): the TPU compute path is
-// JAX/XLA, but IO-bound and generation-bound host work stays native.
+// hipUtil buffers, pmjSampler host generation): the device compute path
+// is JAX/XLA, but IO-bound and generation-bound host work stays native.
 // Exposed via a plain C ABI for ctypes (no pybind11 in this image).
 //
 // Build: see csrc/Makefile (g++ -O3 -shared -fPIC, links zlib).
@@ -188,7 +188,7 @@ int64_t mvrt_obj_parse(const char* text, int64_t len, float* tris,
 // ---------------------------------------------------------------------------
 // Triangle split-to-cap (utils/meshprep.py hot path)
 //
-// The TPU voxelizer evaluates a static cap^3 candidate grid per triangle;
+// The device voxelizer evaluates a static cap^3 candidate grid per triangle;
 // triangles whose voxel bbox exceeds the cap are bisected at their longest
 // edge until they fit (same rule as the numpy implementation: coverage is
 // exact, duplicate voxels merge in the sort+unique pass). Worklist form,

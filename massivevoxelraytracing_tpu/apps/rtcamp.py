@@ -26,9 +26,7 @@ from ..utils import runtime
 
 runtime.setup()
 
-import jax  # noqa: E402
-
-from ..models import scene  # noqa: E402
+from ..models import accel as accel_lib, scene  # noqa: E402
 from ..models.pathtracer import PathTracer  # noqa: E402
 from ..ops import camera as camera_ops  # noqa: E402
 from ..utils import hdr, meshgen, png  # noqa: E402
@@ -53,10 +51,8 @@ def main(argv=None):
     ap.add_argument("--to-res", type=int, default=256)
     ap.add_argument("--lens-r", type=float, default=0.0)
     ap.add_argument(
-        "--accel", choices=["octree", "brick", "hako"], default=None,
-        help="default: hako (Pallas kernels) on TPU, brick on CPU "
-        "(the hako interpret driver is eager and cannot sit inside "
-        "the jitted PT sample)",
+        "--accel", choices=accel_lib.ACCEL_KINDS,
+        default=accel_lib.DEFAULT_ACCEL,
     )
     ap.add_argument("--hdri", default="procedural",
                     help="'procedural', 'none', or a .hdr path")
@@ -68,8 +64,6 @@ def main(argv=None):
     )
     ap.add_argument("--out", default="out/anim")
     args = ap.parse_args(argv)
-    if args.accel is None:
-        args.accel = "hako" if jax.default_backend() == "tpu" else "brick"
 
     begin, end = args.frame_range or (0, args.frames)
     os.makedirs(args.out, exist_ok=True)

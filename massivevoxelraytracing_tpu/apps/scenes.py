@@ -54,7 +54,7 @@ _LATTICE_CACHE: list = []
 
 def _lattice_base():
     """Rest-pose contest-scale mesh (generated once per process: 1.1M
-    triangles take ~10 s of host trig on this 1-core box)."""
+    triangles take seconds of host trig)."""
     if not _LATTICE_CACHE:
         _LATTICE_CACHE.append(meshgen.sphere_lattice(6, 4))
     return _LATTICE_CACHE[0]

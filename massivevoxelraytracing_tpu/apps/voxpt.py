@@ -25,7 +25,7 @@ runtime.setup()
 import jax  # noqa: E402
 
 from ..config import EngineConfig  # noqa: E402
-from ..models import scene  # noqa: E402
+from ..models import accel as accel_lib, scene  # noqa: E402
 from ..models.pathtracer import PathTracer  # noqa: E402
 from ..ops import camera as camera_ops  # noqa: E402
 from ..utils import hdr, meshgen, png  # noqa: E402
@@ -47,10 +47,8 @@ def main(argv=None):
     ap.add_argument("--resume", default=None, help="checkpoint .npz to resume")
     ap.add_argument("--checkpoint", default=None, help="write checkpoint here")
     ap.add_argument(
-        "--accel", choices=["octree", "brick", "hako"], default=None,
-        help="default: hako (Pallas kernels) on TPU, brick on CPU "
-        "(the hako interpret driver is eager and cannot sit inside "
-        "the jitted PT sample)",
+        "--accel", choices=accel_lib.ACCEL_KINDS,
+        default=accel_lib.DEFAULT_ACCEL,
     )
     ap.add_argument("--profile", default=None, help="jax.profiler trace dir")
     ap.add_argument(
@@ -59,8 +57,6 @@ def main(argv=None):
     )
     ap.add_argument("--out", default="out/pt")
     args = ap.parse_args(argv)
-    if args.accel is None:
-        args.accel = "hako" if jax.default_backend() == "tpu" else "brick"
     os.makedirs(args.out, exist_ok=True)
 
     cfg = EngineConfig(

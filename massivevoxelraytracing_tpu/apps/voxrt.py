@@ -23,7 +23,7 @@ runtime.setup()
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from ..models import cpu_oracle, raycast, scene  # noqa: E402
+from ..models import accel as accel_lib, cpu_oracle, raycast, scene  # noqa: E402
 from ..ops import camera as camera_ops  # noqa: E402
 from ..ops import morton  # noqa: E402
 from ..utils import meshgen, png  # noqa: E402
@@ -50,16 +50,12 @@ def main(argv=None):
     ap.add_argument("--oracle", action="store_true",
                     help="A/B against the brute-force intersector")
     ap.add_argument(
-        "--accel", choices=["octree", "brick", "hako"], default=None,
-        help="default: hako (Pallas kernels) on TPU, brick on CPU "
-        "(the hako interpret driver is eager and cannot sit inside "
-        "the jitted PT sample)",
+        "--accel", choices=accel_lib.ACCEL_KINDS,
+        default=accel_lib.DEFAULT_ACCEL,
     )
     ap.add_argument("--profile", default=None, help="jax.profiler trace dir")
     ap.add_argument("--out", default="out")
     args = ap.parse_args(argv)
-    if args.accel is None:
-        args.accel = "hako" if jax.default_backend() == "tpu" else "brick"
 
     os.makedirs(args.out, exist_ok=True)
     tri, colors, emissions = load_scene(args.scene)

@@ -33,7 +33,7 @@ class EngineConfig:
     emission_scale: float = 7.5          # IntersectorOctreeGPU.hpp:273
     hdri_scale: float = 1.75             # renderCommon.hpp:480
 
-    # execution shape (the TPU analog of block-size macros,
+    # execution shape (the analog of the reference block-size macros,
     # IntersectorOctreeGPU.hpp:13-19). Traversal dispatch blocks are
     # per-structure tuned constants (models/accel.py:BLOCK_FOR_KIND).
     ray_packet: int = 65536

@@ -11,48 +11,19 @@ identical results (tested):
 
 from __future__ import annotations
 
-import os
-
 import jax.numpy as jnp
 
 from ..ops import bricktree as brick_ops
-from ..ops import hako_kernels
-from ..ops import hako_mega
 from ..ops import traverse as traverse_ops
 from ..ops import traverse2 as traverse2_ops
 from ..ops.bricktree import BrickTree
-from ..ops.hako import HakoTree
+
+ACCEL_KINDS = ("brick", "octree")
+DEFAULT_ACCEL = "brick"
 
 
-def use_mega() -> bool:
-    """Round-4 default traversal: the persistent megakernel
-    (ops/hako_mega.py). MVRT_MEGA=0 selects the legacy round driver."""
-    return os.environ.get("MVRT_MEGA", "1") != "0"
-
-
-def accel_args(tree, profile: str = "primary"):
-    """(static_kind, static_depth, meta, root) for the jitted render paths.
-
-    For the hako structure, `meta` is a pytree (bricks, tabs, scal_i) and
-    `depth` the static (T, level_rows) pair. `profile` picks the tuned-knob
-    overlay ("primary" for coherent camera tiles, "pt" for the path
-    tracer's wavefronts -- see hako_kernels.TUNED_PT_BY_RES)."""
-    if isinstance(tree, HakoTree) and use_mega():
-        meta, (T, level_rows) = hako_mega.hako_mega_args(tree)
-        knobs = tuple(sorted(
-            hako_mega.mega_knobs(int(tree.grid_res), profile).items()
-        ))
-        return "hako_mega", (T, level_rows, knobs), meta, jnp.uint32(0)
-    if isinstance(tree, HakoTree):
-        meta, (T, level_rows) = hako_kernels.hako_args(tree)
-        # the RESOLVED per-resolution knobs ride the static tuple, so every
-        # jitted wrapper above the dispatch (render_frame, PT step) keys
-        # its cache on them -- resolving inside the trace would silently
-        # reuse stale-knob executables after a module-attr change
-        knobs = tuple(sorted(
-            hako_kernels.knobs_for_res(int(tree.grid_res), profile).items()
-        ))
-        return "hako", (T, level_rows, knobs), meta, jnp.uint32(0)
+def accel_args(tree):
+    """(static_kind, static_depth, meta, root) for the jitted render paths."""
     if isinstance(tree, BrickTree):
         return "brick", tree.n_levels, tree.meta, jnp.uint32(tree.root)
     depth = max(int(tree.grid_res).bit_length() - 1, 1)
@@ -64,26 +35,16 @@ def accel_args(tree, profile: str = "primary"):
     )
 
 
-BLOCK_FOR_KIND = {"brick": 16384, "octree": 8192}  # measured sweet spots
+# Rays per lockstep while_loop; larger packets run as a lax.map over blocks
+# of this size. The fastest of the 1080p primary-frame sweep on an H100
+# (PERF.md): smaller blocks run more loops one after another, larger ones
+# keep every lane waiting for the block's longest walk.
+BLOCK_FOR_KIND = {"brick": 131072, "octree": 131072}
 
 
 def intersect_with(kind: str, depth, meta, root, lower, upper, ro, rd,
                    *, shadow: bool = False, block: int | None = None):
     """Dispatch inside jitted code (kind/depth are static)."""
-    if kind == "hako_mega":
-        T, level_rows, knobs = depth
-        bricks, snodes, tabs, scal_i = meta
-        return hako_mega.intersect_rays_hako_mega(
-            bricks, snodes, tabs, scal_i, lower, upper, ro, rd,
-            T=T, level_rows=level_rows, shadow=shadow, **dict(knobs),
-        )
-    if kind == "hako":
-        T, level_rows, knobs = depth
-        bricks, snodes, tabs, scal_i = meta
-        return hako_kernels.intersect_rays_hako(
-            bricks, snodes, tabs, scal_i, lower, upper, ro, rd,
-            T=T, level_rows=level_rows, shadow=shadow, **dict(knobs),
-        )
     if block is None:
         block = BLOCK_FOR_KIND[kind]
     if kind == "brick":

@@ -3,7 +3,7 @@
 The reference validates its GPU pipeline against CPU engines sharing the same
 math (voxRT.cpp:198-241 voxelization loop, IntersectorOctree.hpp builders) and
 against Embree as the ground-truth intersector (IntersectorEmbree.hpp). This
-module plays those roles for the TPU build:
+module plays those roles here:
 
   - `voxelize_triangle` / `voxelize_mesh`: Schwarz-Seidel conservative and
     6-separating triangle voxelization (closed-form predicate, float32), the

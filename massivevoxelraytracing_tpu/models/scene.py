@@ -30,7 +30,9 @@ from ..ops.bits import U32
 from ..utils import meshprep
 
 INVALID = 0xFFFFFFFF
-GROUP_DUMPED = 40 << 20  # above this, unique runs hierarchically (by groups)
+# Above this many dumped voxels, unique runs hierarchically (by groups).
+# Sized for a 16 GB device; the right size for 80 GB is not yet measured.
+GROUP_DUMPED = 40 << 20
 
 
 @jax.jit
@@ -67,20 +69,6 @@ def build_accel_from_unique(uniq, *, origin, dps, grid_res, accel, dag=True):
     n_unique = int(uniq["n_unique"])
     pad = octree_ops.bucket(n_unique)
     lower = jnp.asarray(origin, jnp.float32)
-    if accel == "hako":
-        from ..ops import hako as hako_ops
-
-        return hako_ops.build_hako(
-            uniq["m_hi"][:pad],
-            uniq["m_lo"][:pad],
-            n_unique,
-            grid_res,
-            lower=np.asarray(lower),
-            dps=float(dps),
-            color=uniq["color"][:pad],
-            emission=uniq["emission"][:pad],
-            has_emission=bool(uniq["has_emission"]),
-        )
     if accel == "brick":
         return brick_ops.build_bricktree(
             uniq["m_hi"][:pad],
@@ -108,7 +96,7 @@ def build_accel_from_unique(uniq, *, origin, dps, grid_res, accel, dag=True):
     )
 
 
-def build_scene(
+def voxelize_unique(
     tri_verts,
     tri_colors=None,
     tri_emissions=None,
@@ -118,11 +106,12 @@ def build_scene(
     grid_res: int,
     six_separating: bool = True,
     cap: int = 4,
-    dag: bool = True,
     chunk_tris: int = 65536,
-    accel: str = "octree",
 ):
-    """Voxelize + build. tri_*: f32[T, 3, 3] host arrays."""
+    """Voxelize + sort/unique: the front half of build_scene. Returns the
+    unique-voxel stream (sort_and_unique's dict: Morton-sorted m_hi/m_lo
+    with mean color/emission, valid prefix n_unique) and the build stats
+    so far. tri_*: f32[T, 3, 3] host arrays."""
     tri_verts = np.asarray(tri_verts, np.float32).reshape(-1, 3, 3)
     if tri_colors is None:
         tri_colors = np.ones_like(tri_verts)
@@ -169,10 +158,10 @@ def build_scene(
     # pass 2: emit compacted chunks at running offsets, then sort + unique
     # with true duplicate means (`unique` kernel). Above GROUP_DUMPED the
     # stream is processed HIERARCHICALLY (per-group sort to channel sums,
-    # then one merge of the much smaller unique streams): a single global
-    # 4-operand sort of a 2048^3-scale dump (plus XLA's sort temp) exceeds
-    # HBM. Attribute means are bitwise identical either way (sum of sums /
-    # sum of counts, same integer division).
+    # then one merge of the much smaller unique streams), which bounds the
+    # global 4-operand sort and its temp space. Attribute means are bitwise
+    # identical either way (sum of sums / sum of counts, same integer
+    # division).
     cand_per_chunk = chunk * cap * cap * cap
     if total_dumped <= GROUP_DUMPED:
         groups = [(0, n_chunks)]
@@ -235,17 +224,42 @@ def build_scene(
         n_dumped=total_dumped,
         n_unique=n_unique,
         grid_res=grid_res,
+        t_split_s=t_split - t_0,
+        t_count_s=t_count - t_split,
+        t_unique_s=t_unique - t_count,
     )
+    return uniq, stats
+
+
+def build_scene(
+    tri_verts,
+    tri_colors=None,
+    tri_emissions=None,
+    *,
+    origin,
+    dps,
+    grid_res: int,
+    six_separating: bool = True,
+    cap: int = 4,
+    dag: bool = True,
+    chunk_tris: int = 65536,
+    accel: str = "octree",
+):
+    """Voxelize + build. tri_*: f32[T, 3, 3] host arrays."""
+    t_0 = time.time()
+    uniq, stats = voxelize_unique(
+        tri_verts, tri_colors, tri_emissions, origin=origin, dps=dps,
+        grid_res=grid_res, six_separating=six_separating, cap=cap,
+        chunk_tris=chunk_tris,
+    )
+    t_unique = time.time()
     tree = build_accel_from_unique(
-        uniq, origin=origin_j, dps=dps, grid_res=grid_res,
-        accel=accel, dag=dag,
+        uniq, origin=jnp.asarray(origin, jnp.float32), dps=dps,
+        grid_res=grid_res, accel=accel, dag=dag,
     )
     t_accel = time.time()
     stats["n_nodes"] = tree.n_nodes
     stats["accel_bytes"] = tree.memory_bytes()
-    stats["t_split_s"] = t_split - t_0
-    stats["t_count_s"] = t_count - t_split
-    stats["t_unique_s"] = t_unique - t_count
     stats["t_accel_s"] = t_accel - t_unique
     stats["t_total_s"] = t_accel - t_0
     tree.build_stats = stats

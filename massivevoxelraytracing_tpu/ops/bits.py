@@ -1,7 +1,6 @@
 """Bit-twiddling primitives on uint32, plus 64-bit arithmetic as 2x uint32 limbs.
 
-TPU-native stance: TPUs have no fast native 64-bit integer path and JAX keeps
-x64 disabled by default, so every 64-bit quantity in this framework (Morton
+JAX keeps x64 disabled by default, so every 64-bit quantity in this framework (Morton
 codes, PCG32 state) is carried as a (hi, lo) pair of uint32 arrays. All
 helpers are shape-polymorphic and jit/vmap friendly.
 

@@ -1,12 +1,10 @@
-"""BrickTree64: a 4^3-branching sparse voxel tree, the TPU performance
+"""BrickTree64: a 4^3-branching sparse voxel tree, the production
 structure.
 
-Motivation (measured on this backend, see traverse2.py): every random table
-access costs ~1/0.14G s of scalar-core time and each fusion-broken loop
-iteration ~300us of dispatch, so traversal speed is set by *row-gathers per
-ray*. An octree does one gather per 2x-halving; a 64-ary tree does one per
-4x-halving AND makes sibling stepping, occupancy tests, child indexing, and
-voxel ranking pure register arithmetic:
+Traversal speed is set largely by *node visits per ray*, each one a
+dependent row-gather. An octree does one gather per 2x-halving; a 64-ary
+tree does one per 4x-halving AND makes sibling stepping, occupancy tests,
+child indexing, and voxel ranking pure register arithmetic:
 
   node record (u32 x 4, one row-gather):
     [mask_lo, mask_hi, base, 0]   64-bit cell occupancy over the 4^3 grid
@@ -37,6 +35,7 @@ import numpy as np
 
 from .bits import I32, U32, popcount32, u32
 from . import morton
+from .traverse2 import map_ray_blocks
 
 INVALID = 0xFFFFFFFF
 MAX_FLOAT = jnp.float32(3.402823466e38)
@@ -443,27 +442,14 @@ def intersect_rays_brick(
     meta, root, lower, upper, ro, rd, *, n_levels: int, shadow: bool = False,
     max_iters: int = 100_000, block: int = 8192,
 ):
-    R = ro.shape[0]
     root = jnp.uint32(root) if not hasattr(root, "dtype") else root
-    if R <= block:
-        return _traverse_block64(
-            meta, root, n_levels, lower, upper, ro, rd,
-            shadow=shadow, max_iters=max_iters,
-        )
-    assert R % block == 0
-    nb = R // block
-
-    def fn(args):
-        ro_b, rd_b = args
-        return _traverse_block64(
+    return map_ray_blocks(
+        lambda ro_b, rd_b: _traverse_block64(
             meta, root, n_levels, lower, upper, ro_b, rd_b,
             shadow=shadow, max_iters=max_iters,
-        )
-
-    t, nmaj, vidx = jax.lax.map(
-        fn, (ro.reshape(nb, block, 3), rd.reshape(nb, block, 3))
+        ),
+        ro, rd, block,
     )
-    return t.reshape(R), nmaj.reshape(R), vidx.reshape(R)
 
 
 def intersect_bricktree(tree: BrickTree, ro, rd, shadow: bool = False,

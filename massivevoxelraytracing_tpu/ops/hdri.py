@@ -9,7 +9,7 @@ one unweighted + six axis-cosine-weighted, selected per shading point when
 row conditional; PDF = pSelection / solidAngle. A separate hi-res "primary"
 image serves camera-visible env lookups.
 
-TPU-native: the table build is a host numpy f64 cumsum (it runs once per
+The table build is a host numpy f64 cumsum (it runs once per
 HDRI load, not per frame -- the reference only GPU'd it because the data was
 already there); sampling runs on device as vectorized binary searches over
 the u32 tables (upper_bound_f, renderCommon.hpp:182-202).
@@ -248,8 +248,7 @@ def importance_sample(env: HDRI, n, u0, u1, u2, u3, axis_aligned: bool = True):
 
     if env.use_alias:
         # Walker alias sampling: identical texel distribution, 3 gathers
-        # (vs ~22 dependent binary-search probes -- this backend's gathers
-        # run at scalar-core rate, so NEE cost drops an order of magnitude)
+        # (vs ~22 dependent binary-search probes)
         nt = w * h
         j = jnp.clip((u0 * nt).astype(I32), 0, nt - 1)
         lin = table * nt + j

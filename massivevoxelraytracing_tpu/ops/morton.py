@@ -2,8 +2,8 @@
 
 The reference stores 63-bit Morton codes in uint64 with three interchangeable
 codecs (naive loop, magic bits, BMI2 PDEP/PEXT) -- /root/reference/morton.hpp.
-TPU has neither uint64 fast paths nor PDEP, so the TPU-native layout is a pair
-of uint32 limbs: lo holds interleaved bits 0..31 (coordinate bits 0..10 of
+With JAX's x64 mode off and no PDEP, the layout here is a pair of uint32
+limbs: lo holds interleaved bits 0..31 (coordinate bits 0..10 of
 each axis, x at stride-3 offset 0), hi holds bits 32..62 (coordinate bits
 11..20). Two codecs are provided, naive and magic-bits, mirroring the
 reference's property-test strategy (unittest.cpp:183-216).

@@ -6,7 +6,7 @@ with ordered stream compaction, assembles nodes, and deduplicates them with a
 lock-free linear-probing hash table (atomicCAS). Level buffer sizes come from
 a one-shot boundary pre-count (octreeTaskInit).
 
-TPU-native redesign -- everything becomes sorted/segmented array ops:
+Array-program redesign -- everything becomes sorted/segmented array ops:
   * group-by-parent  = neighbor-diff boundary mask + cumsum segment ids
   * node assembly    = scatter into [n_groups, 8] slot arrays (indices are
                        unique by construction, no atomics needed)
@@ -233,7 +233,6 @@ def _assemble(level_nodes, offsets, *, total_pad: int):
         children == _c(INVALID), children, children | (child_mask << 24)
     )
     # fused node record: one 16-wide row gather fetches children + psums
-    # (gathers on this backend cost per ROW, not per element)
     meta = jnp.concatenate([children, psum], axis=1)
     return children, psum, mask, meta
 

@@ -2,7 +2,7 @@
 
 Reference inner loop: octreeTraverse_EfficientParametric (voxCommon.hpp:231-423,
 SMALL_STACK variant) -- a per-thread stack walk with gotos. A lockstep SIMD
-machine can't branch per lane, so the TPU-native form flattens the nested
+machine can't branch per lane, so the array form flattens the nested
 loops into a *single-step state machine* iterated by lax.while_loop over the
 whole ray packet:
 

@@ -5,9 +5,9 @@ state machine: each while iteration advances a lane by at most one child
 slot, so a node visit costs up to 5 iterations and every iteration pays the
 full packet. v2 restructures the same traversal (same visit order, same
 results) around a per-node *child selection*: compute all 8 children's
-entry/exit times at once (they are static selects of t0/tM/t1 -- free on
-the VPU), mask by occupancy / behind / resume-key, and take the lexicographic
-minimum (entry, octant). Each iteration then either descends, records a leaf
+entry/exit times at once (they are static selects of t0/tM/t1 -- no
+memory traffic), mask by occupancy / behind / resume-key, and take the
+lexicographic minimum (entry, octant). Each iteration then either descends, records a leaf
 hit, or pops -- one node visit per iteration, ~5x fewer iterations.
 
 Extras over v1:
@@ -16,8 +16,8 @@ Extras over v1:
   * resume keys (entry time + octant) replace the childMask, enabling the
     8-wide selection.
   * rays stream through a lax.map over fixed sub-blocks inside one jit:
-    small blocks keep the while-loop carry VMEM-resident and cut lockstep
-    tail waste; one compile for any ray count.
+    small blocks cut lockstep tail waste (every lane waits for its block's
+    longest walk); one compile for any ray count.
 
 Semantics match octreeTraverse_EfficientParametric (voxCommon.hpp:231-423):
 mirror-by-XOR for negative directions, positive-entry hits only, in-order
@@ -286,26 +286,33 @@ def intersect_rays2(
     """v2 entry point: rays processed in `block`-sized sub-packets via
     lax.map (one compile for any ray count; block trades lockstep tail waste
     against per-iteration dispatch overhead)."""
-    R = ro.shape[0]
-    if R <= block:
-        return _traverse_block(
-            meta, root_entry, lower, upper, ro, rd,
-            stack_depth=stack_depth, shadow=shadow, max_iters=max_iters,
-        )
-    assert R % block == 0, f"ray count {R} must be a multiple of block {block}"
-    nb = R // block
-
-    def fn(args):
-        ro_b, rd_b = args
-        return _traverse_block(
+    return map_ray_blocks(
+        lambda ro_b, rd_b: _traverse_block(
             meta, root_entry, lower, upper, ro_b, rd_b,
             stack_depth=stack_depth, shadow=shadow, max_iters=max_iters,
-        )
-
-    t, nmaj, vidx = jax.lax.map(
-        fn, (ro.reshape(nb, block, 3), rd.reshape(nb, block, 3))
+        ),
+        ro, rd, block,
     )
-    return t.reshape(R), nmaj.reshape(R), vidx.reshape(R)
+
+
+def map_ray_blocks(walk, ro, rd, block: int):
+    """Run a lockstep walk `walk(ro, rd) -> (t, nmajor, vidx)` over rays in
+    sequential sub-packets of `block` rays. A ray count that is not a
+    multiple of `block` is padded with rays parked far outside every scene
+    (they retire on iteration 0); their results are dropped."""
+    R = ro.shape[0]
+    if R <= block:
+        return walk(ro, rd)
+    nb = -(-R // block)
+    pad = nb * block - R
+    if pad:
+        ro = jnp.concatenate([ro, jnp.full((pad, 3), 1e9, ro.dtype)])
+        rd = jnp.concatenate([rd, jnp.ones((pad, 3), rd.dtype)])
+    t, nmaj, vidx = jax.lax.map(
+        lambda args: walk(*args),
+        (ro.reshape(nb, block, 3), rd.reshape(nb, block, 3)),
+    )
+    return t.reshape(-1)[:R], nmaj.reshape(-1)[:R], vidx.reshape(-1)[:R]
 
 
 def tree_meta(tree: VoxelOctree):

@@ -1,7 +1,7 @@
-"""TPU-native triangle voxelization (Schwarz-Seidel conservative / 6-separating).
+"""Triangle voxelization as array ops (Schwarz-Seidel conservative / 6-separating).
 
 Reference pipeline (voxKernel.cu:58-243): one GPU thread per triangle runs
-nested x/y/z range loops with atomics for allocation. The TPU-native design
+nested x/y/z range loops with atomics for allocation. The design here
 replaces the serial loops and atomics with a *dense candidate-grid predicate*:
 
   1. Host pre-pass subdivides triangles until each one's voxel bbox fits a

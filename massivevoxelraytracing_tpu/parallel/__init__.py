@@ -1,1 +1,1 @@
-from . import bigscene, build, mesh, render  # noqa: F401
+from . import build, mesh, render  # noqa: F401

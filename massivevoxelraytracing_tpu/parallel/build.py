@@ -1,7 +1,7 @@
 """Sharded scene build: the voxel stream partitioned over a device mesh.
 
 The reference's build is single-GPU (IntersectorOctreeGPU::build,
-IntersectorOctreeGPU.hpp:40-241). On TPU the per-frame rebuild shards
+IntersectorOctreeGPU.hpp:40-241). Here the per-frame rebuild shards
 naturally over the 'dp' axis: triangle chunks are distributed across
 devices, each device runs the two-pass voxelize (count -> emit) plus the
 GROUP stage of the hierarchical unique (`sort_and_unique_sums` -- per-voxel
@@ -34,7 +34,7 @@ The sizing pass only sizes; a safety re-run with a doubled buffer covers
 the (never observed) case where drift crosses a pow2 bucket boundary.
 
 Collective cost: one all_gather of the compacted per-device unique streams
-(a few bytes per unique voxel) rides ICI; the dumped-voxel stream -- the
+(a few bytes per unique voxel); the dumped-voxel stream -- the
 big array -- never leaves its device.
 """
 

@@ -1,11 +1,11 @@
 """Device-mesh helpers.
 
 The reference's only multi-device story is frame-range SSH splitting
-(usecase2_submission/run.py). The TPU-native replacement: a jax.sharding.Mesh
+(usecase2_submission/run.py). The replacement here: a jax.sharding.Mesh
 with two logical axes --
   'dp'  pixel/ray data parallelism (embarrassing, no collectives)
-  'sp'  sample (spp) parallelism, reduced with psum over ICI
--- plus frame-parallelism across hosts/slices over DCN handled by the batch
+  'sp'  sample (spp) parallelism, reduced with psum
+-- plus frame-parallelism across cards and hosts handled by the batch
 driver (apps/rtcamp.py --frame-range, exactly the reference's partitioning).
 """
 

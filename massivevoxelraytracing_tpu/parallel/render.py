@@ -1,7 +1,7 @@
 """Sharded progressive render step over a ('dp', 'sp') mesh.
 
 Design (SURVEY.md section 2.8 mapping): rays/pixels shard over 'dp', the spp
-batch shards over 'sp' and is reduced with a psum over ICI; the SVO/DAG node
+batch shards over 'sp' and is reduced with a psum; the SVO/DAG node
 tables and attributes are replicated per chip (they are small after DAG
 compression -- 61 MB for 55M voxels in the reference's headline scene).
 This is the multi-chip form of one PathTracer::step (+16 spp,
@@ -59,7 +59,6 @@ def make_sharded_render(mesh: Mesh, *, width: int, height: int,
             mesh=flat,
             in_specs=(P(),) * 10,
             out_specs=P("rows"),
-            check_vma=False,  # pallas out_shapes carry no vma annotation
         )(meta, root, lower, upper, color_table, cam_o, cam_right,
           cam_up, cam_front, tan_half_fovy)
         return img[:height], t[:height]
@@ -75,8 +74,7 @@ def make_sharded_pt_step(mesh: Mesh, *, stack_depth: int,
     """The FULL progressive path-trace step over the ('dp','sp') mesh:
     pixels shard over 'dp' (each dp-shard generates its pixel lanes on
     device from its axis index), the spp batch shards over 'sp' (each
-    sp-shard draws different PMJ sample indices) and reduces with a psum
-    over ICI; the SVO/DAG, attributes, HDRI tables, and PMJ table are
+    sp-shard draws different PMJ sample indices) and reduces with a psum; the SVO/DAG, attributes, HDRI tables, and PMJ table are
     replicated. This is PathTracer::step (+spp) in its multi-chip form."""
     from ..models.pathtracer import pt_sample
 
@@ -126,9 +124,11 @@ def make_sharded_pt_step(mesh: Mesh, *, stack_depth: int,
                 P(),
             ),
             out_specs=P("dp"),
-            # the hako accel runs pallas_call inside the shard (per-device
-            # ray blocks, replicated tables); pallas out_shapes carry no
-            # varying-mesh-axes annotation, so the vma check must be off
+            # pt_sample's bounce loop carries per-pixel (stream), per-sample
+            # (spp) and per-lane (orig) state, and the inter-bounce
+            # compaction sort mixes them, so their varying-axes types differ
+            # between the lax.fori_loop's entry and exit; pt_sample cannot
+            # reconcile them without naming this mesh's axes
             check_vma=False,
         )(meta, root_entry, lower, upper, color_table, emission_table,
           pmj_table, env, cam_o, cam_right, cam_up, cam_front,

@@ -451,7 +451,7 @@ def write_fixture_abc(
         struct.pack("<i", 0),          # spec version
         struct.pack("<i", 10800),      # writer version
         top_obj,
-        b"_ai_AlembicVersion=hako-tpu fixture writer",
+        b"_ai_AlembicVersion=hako fixture writer",
         times,
         b"",                            # indexed metadata (none)
     ]

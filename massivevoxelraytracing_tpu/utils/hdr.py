@@ -112,3 +112,14 @@ def procedural_sky(width: int = 512, height: int = 256,
     disc = cosang > np.cos(sun_radius)
     img = img + disc[..., None] * sun_intensity
     return img.astype(np.float32)
+
+
+def gradient_sky(height: int = 64, width: int = 128) -> np.ndarray:
+    """Smooth blue-white sky that dims with the polar angle and has no sun:
+    the benchmark's environment (every NEE sample sees some light)."""
+    ang = np.linspace(0, np.pi, height)[:, None]
+    return np.stack([
+        np.broadcast_to(0.6 + 0.4 * np.cos(ang), (height, width)),
+        np.broadcast_to(0.7 + 0.3 * np.cos(ang), (height, width)),
+        np.broadcast_to(0.9 + 0.1 * np.cos(ang), (height, width)),
+    ], -1).astype(np.float32)

@@ -1,6 +1,6 @@
 """Host-side triangle preparation for the dense candidate-grid voxelizer.
 
-The TPU voxelizer evaluates a static cap^3 candidate grid per triangle
+The device voxelizer evaluates a static cap^3 candidate grid per triangle
 (ops/voxelize.py), so triangles whose voxel-space bbox exceeds the cap are
 subdivided here by longest-edge bisection. Coverage is preserved: the
 Schwarz-Seidel predicate is an exact triangle/box overlap test, so the union

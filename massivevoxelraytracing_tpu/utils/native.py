@@ -2,8 +2,8 @@
 
 Builds build/libmvrt.so on demand with g++ (cached by source mtime) and
 falls back to the pure-python implementations when no compiler is available.
-This is the TPU build's version of the reference's compiled host layer
-(hipUtil/prlib): compute stays on the TPU, host IO/generation stays native.
+This is the counterpart of the reference's compiled host layer
+(hipUtil/prlib): compute stays on the device, host IO/generation stays native.
 """
 
 from __future__ import annotations

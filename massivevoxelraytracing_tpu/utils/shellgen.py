@@ -7,7 +7,7 @@ watertight from any view direction -- as a stream of sorted unique Morton
 chunks. Chunks are Morton-aligned cubes of side `cube` visited in Morton
 order of their cube coordinates: cube Mortons are the high bits of their
 voxels' Mortons, so the concatenated stream is globally sorted and
-brick-aligned, exactly what ops/hako_stream.py consumes. Total voxel count
+brick-aligned, the input a streamed (chunk-at-a-time) tree build needs. Total voxel count
 is available analytically (tile pass only) before any generation, so demos
 can calibrate amplitude/frequency to a target occupancy without building.
 """

@@ -5,9 +5,12 @@ import os
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
 from massivevoxelraytracing_tpu.config import EngineConfig
-from massivevoxelraytracing_tpu.apps.launch_frames import partition
+from massivevoxelraytracing_tpu.apps.launch_frames import (
+    local_worker_envs, partition,
+)
 from massivevoxelraytracing_tpu.models import scene
 from massivevoxelraytracing_tpu.models.pathtracer import PathTracer
 from massivevoxelraytracing_tpu.ops import camera as camera_ops
@@ -29,6 +32,28 @@ def test_frame_partition():
         for a, b in r:
             covered.extend(range(a, b))
         assert covered == list(range(frames))
+
+
+def test_local_workers_get_a_card_each():
+    envs = local_worker_envs(3, 4, {"PATH": "/bin"})
+    assert [e["CUDA_VISIBLE_DEVICES"] for e in envs] == ["0", "1", "2"]
+    assert all(e["PATH"] == "/bin" for e in envs)
+    # an existing restriction is split among the workers, not overridden
+    envs = local_worker_envs(2, 4, {"CUDA_VISIBLE_DEVICES": "2,3"})
+    assert [e["CUDA_VISIBLE_DEVICES"] for e in envs] == ["2", "3"]
+
+
+def test_local_workers_refuse_more_than_cards():
+    with pytest.raises(SystemExit, match="card of its own"):
+        local_worker_envs(3, 2, {})
+    with pytest.raises(SystemExit):
+        local_worker_envs(3, 4, {"CUDA_VISIBLE_DEVICES": "0,1"})
+
+
+def test_local_workers_on_cpu_share_the_host():
+    # no GPU (a CPU run): any number of workers, environment untouched
+    envs = local_worker_envs(5, 0, {"JAX_PLATFORMS": "cpu"})
+    assert envs == [{"JAX_PLATFORMS": "cpu"}] * 5
 
 
 def test_checkpoint_resume(tmp_path):

@@ -95,3 +95,54 @@ def test_brick_single_level():
     assert (float(t[0]) < 1e37) == np.isfinite(to)
     if np.isfinite(to):
         assert int(vi[0]) == vo
+
+
+@pytest.mark.parametrize("shadow", [False, True], ids=["closest", "anyhit"])
+@pytest.mark.parametrize("grid_res", [8, 16, 64])
+def test_brick_matches_bruteforce(grid_res, shadow):
+    """Every ray against the brute-force slab oracle. Closest-hit rays must
+    agree on (t, face, voxel) up to classified ties; shadow (any-hit) rays
+    need only the visibility the path tracer reads from them."""
+    from tiecheck import classify_all_vs_oracle, classify_vs_oracle
+
+    dps = 1.0 / grid_res
+    m = random_voxels(grid_res, grid_res * grid_res // 2)
+    _, brick = make_both(m, grid_res, dps)
+    n = 300
+    ro = RNG.uniform(-1.0, 2.0, (n, 3)).astype(np.float32)
+    rd = (RNG.uniform(0.1, 0.9, (n, 3)) - ro).astype(np.float32)
+    t, nm, vi = (np.asarray(x) for x in
+                 bricktree.intersect_bricktree(brick, ro, rd, shadow=shadow))
+    lower = (0.0, 0.0, 0.0)
+    if not shadow:
+        n_tie = classify_all_vs_oracle(m, lower, dps, ro, rd, t, nm, vi)
+    else:
+        n_tie = 0
+        for i in range(n):
+            to, _, vo = cpu_oracle.intersect_brute_force(m, lower, dps, ro[i], rd[i])
+            if (t[i] < 1e37) != np.isfinite(to):
+                n_tie += 1
+                classify_vs_oracle(i, m, lower, dps, ro[i], rd[i], t[i],
+                                   vi[i], to, vo)
+    assert (t < 1e37).any()
+    assert n_tie <= max(2, n // 100), f"{n_tie}/{n} ties is implausibly many"
+
+
+@pytest.mark.parametrize("block", [1024, 4096, 5000])
+def test_brick_results_do_not_depend_on_block(block):
+    """A ray count that is not a multiple of the block is padded with
+    parked rays; each ray's walk is the same whatever block it rides in
+    (5000 = the whole packet: one lockstep loop)."""
+    from tiecheck import classify_vs_each_other
+
+    grid_res = 64
+    m = random_voxels(grid_res, 3000)
+    _, brick = make_both(m, grid_res, 1.0 / grid_res)
+    ro = RNG.uniform(-1.0, 2.0, (5000, 3)).astype(np.float32)
+    rd = (RNG.uniform(0.1, 0.9, (5000, 3)) - ro).astype(np.float32)
+    ref = [np.asarray(x) for x in
+           bricktree.intersect_bricktree(brick, ro, rd, block=256)]
+    got = [np.asarray(x) for x in
+           bricktree.intersect_bricktree(brick, ro, rd, block=block)]
+    assert got[0].shape == (5000,)
+    assert classify_vs_each_other(*ref, *got) == 0

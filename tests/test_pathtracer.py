@@ -138,6 +138,37 @@ def test_compaction_is_bit_identical(monkeypatch):
 
 
 
+@pytest.mark.parametrize(
+    "tile_packets,spp_major,packet",
+    [(False, False, 1 << 16), (False, True, 1 << 16), (True, False, 1 << 16),
+     (True, True, 4096)],
+    ids=["scanline-sppminor", "scanline-sppmajor", "tiled-sppminor",
+         "tiled-sppmajor-2packets"],
+)
+def test_packet_layouts_are_pure_relabelings(tile_packets, spp_major, packet):
+    """Tile order, spp-major lanes and the pixel-packet split only relabel
+    (pixel, sample) lanes, so on a ragged 37x29 frame every layout gives
+    the default layout's radiance (to the ulp, as in the compaction test)."""
+    tree, origin, dps = sphere_scene(grid_res=16, emissive=True)
+    cam = look_cam(origin, dps, 16)
+    env = np.full((8, 16, 3), 0.8, np.float32)
+
+    def run(**kw):
+        pt = PathTracer(width=37, height=29, **kw)
+        pt.pmj_table = make_pt(tree).pmj_table
+        pt.setup()
+        pt.load_hdri(env, scale=1.0)
+        pt.update_scene(tree)
+        pt.step(cam, n_spp=2)
+        return np.asarray(pt.accum)
+
+    ref = run()  # defaults: tiled, spp-major, one packet
+    got = run(tile_packets=tile_packets, spp_major=spp_major, packet=packet)
+    assert np.all(got[:, 3] == 2)
+    np.testing.assert_allclose(ref, got, rtol=1e-6, atol=4e-6)
+    assert np.mean(ref != got) < 0.05
+
+
 def test_half_sky_floor_analytic_half_albedo():
     """Analytic transport oracle with a NON-uniform environment (the
     white furnace cannot catch directional pdf/table errors -- any

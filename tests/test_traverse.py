@@ -49,30 +49,9 @@ def compare_vs_bruteforce(m, grid_res, dps, lower, n_rays=400, dag=True):
     nmaj = np.asarray(nmaj)
     vidx = np.asarray(vidx)
 
-    from tiecheck import assert_face_tie, classify_vs_oracle
+    from tiecheck import classify_all_vs_oracle
 
-    n_classified = 0
-    for i in range(n_rays):
-        to, no, vo = cpu_oracle.intersect_brute_force(m, lower, dps, ro[i], rd[i])
-        dev_hit = t[i] < 1e37
-        ora_hit = np.isfinite(to)
-        exact = (
-            dev_hit == ora_hit
-            and (not dev_hit
-                 or (np.isclose(t[i], to, rtol=2e-5, atol=1e-6)
-                     and vidx[i] == vo and nmaj[i] == no))
-        )
-        if exact:
-            continue
-        n_classified += 1
-        if (dev_hit and ora_hit and vidx[i] == vo
-                and np.isclose(t[i], to, rtol=2e-5, atol=1e-6)):
-            # same voxel, same t, different face: must be an axis tie
-            assert_face_tie(i, m[int(vo)], lower, dps, ro[i], rd[i])
-        else:
-            classify_vs_oracle(
-                i, m, lower, dps, ro[i], rd[i], t[i], vidx[i], to, vo
-            )
+    n_classified = classify_all_vs_oracle(m, lower, dps, ro, rd, t, nmaj, vidx)
     return n_classified, n_rays
 
 

@@ -112,3 +112,93 @@ def classify_vs_oracle(
         f"ray {i}: unclassified disagreement: dev(t={t_dev}, v={v_dev}) "
         f"vs oracle(t={t_ora}, v={v_ora})"
     )
+
+
+def classify_all_vs_oracle(m_sorted, lower, dps, ro, rd, t, nmaj, vidx):
+    """Every ray of a device walk vs the brute-force slab oracle
+    (cpu_oracle.intersect_brute_force). A ray that disagrees must classify
+    as a face tie, a t-tie or a grazing touch, or this raises. Returns the
+    number of rays that needed classifying."""
+    from massivevoxelraytracing_tpu.models import cpu_oracle
+
+    n_classified = 0
+    for i in range(len(ro)):
+        to, no, vo = cpu_oracle.intersect_brute_force(
+            m_sorted, lower, dps, ro[i], rd[i]
+        )
+        dev_hit = t[i] < 1e37
+        ora_hit = np.isfinite(to)
+        same_t = dev_hit and ora_hit and np.isclose(
+            t[i], to, rtol=2e-5, atol=1e-6
+        )
+        if dev_hit == ora_hit and (
+            not dev_hit or (same_t and vidx[i] == vo and nmaj[i] == no)
+        ):
+            continue
+        n_classified += 1
+        if same_t and vidx[i] == vo:
+            # same voxel, same t, different face: must be an axis tie
+            assert_face_tie(i, m_sorted[int(vo)], lower, dps, ro[i], rd[i])
+        else:
+            classify_vs_oracle(
+                i, m_sorted, lower, dps, ro[i], rd[i], t[i], vidx[i], to, vo
+            )
+    return n_classified
+
+
+def entry_t_tolerance(m_voxel, lower, dps, ro, rd, extent):
+    """Float32 error bound on a walker's entry distance into a voxel. The
+    entry is the plane crossing on the voxel's entry axis a, and a walker
+    derives it from root-box quantities as large as (|ro| + extent)/|rd_a|
+    (extent = the root box's side), rounding about 4 operations per tree
+    level: some 75 ulp of that over an 11-level octree walk plus a 6-level
+    brick walk. Allow 128."""
+    x, y, z = morton_ops.np_decode(np.asarray([m_voxel], np.uint64))
+    lo = np.asarray(lower, F) + np.stack([x, y, z], -1).astype(F)[0] * F(dps)
+    tmin = np.full(3, -np.inf)
+    for a in range(3):
+        if rd[a] != 0.0:
+            tmin[a] = min((lo[a] - ro[a]) / rd[a], (lo[a] + dps - ro[a]) / rd[a])
+    a = int(np.argmax(tmin))
+    scale = float(np.abs(ro).max()) + float(extent)
+    return 128 * float(np.finfo(F).eps) * scale / abs(float(rd[a]))
+
+
+def classify_walkers_vs_each_other(m_sorted, lower, dps, extent, ro, rd,
+                                   t1, m1, v1, t2, m2, v2, rtol=1e-5,
+                                   atol=1e-7):
+    """Two exact walkers over the same voxels, at a scale where their
+    different float paths matter. Every disagreement must be a t-tie (the
+    same entry plane up to entry_t_tolerance), or the EARLIER hit must be a
+    grazing touch of its own voxel (zero-measure slab, checked
+    geometrically) that the other walker legitimately skipped. Raises
+    after the whole pass, listing the unclassified rays; returns the
+    number of rays that needed classifying."""
+    hit1 = t1 < 1e37
+    hit2 = t2 < 1e37
+    agree = (hit1 == hit2) & (
+        ~hit1 | (np.isclose(t1, t2, rtol=rtol, atol=atol)
+                 & (v1 == v2) & (m1 == m2))
+    )
+    bad = np.nonzero(~agree)[0]
+    failures = []
+    for i in bad:
+        first = 1 if hit1[i] and (not hit2[i] or t1[i] <= t2[i]) else 2
+        ta, va = (t1[i], v1[i]) if first == 1 else (t2[i], v2[i])
+        tb, vb = (t2[i], v2[i]) if first == 1 else (t1[i], v1[i])
+        if hit1[i] and hit2[i] and abs(float(ta) - float(tb)) <= max(
+                entry_t_tolerance(m_sorted[int(va)], lower, dps, ro[i],
+                                  rd[i], extent),
+                rtol * abs(float(ta)) + atol):
+            continue  # the same entry plane up to float error: a t-tie
+        try:
+            # the earlier walker plays the inclusive oracle's role
+            classify_vs_oracle(i, m_sorted, lower, dps, ro[i], rd[i], tb, vb,
+                               float(ta), va)
+        except AssertionError as e:
+            failures.append(str(e))
+    if failures:
+        raise AssertionError(
+            f"{len(failures)} of {len(bad)} disagreements unclassified, "
+            f"e.g.: " + " | ".join(failures[:5]))
+    return len(bad)
